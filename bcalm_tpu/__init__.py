@@ -1,7 +1,7 @@
-"""bcalm-tpu: a TPU-native compacted de Bruijn graph engine.
+"""bcalm-tpu: a JAX/XLA compacted de Bruijn graph engine.
 
 A from-scratch re-design of the capabilities of BCALM 2 / GATB-core
-(reference: /root/reference, BCALM v2.2.3) for TPU hardware:
+(reference: /root/reference, BCALM v2.2.3) for accelerators:
 
 - k-mer counting as dense sort/segment-reduce over 2-bit-packed uint32
   lanes (replaces GATB's disk-staged DSK, kmer/impl/SortingCountAlgorithm),

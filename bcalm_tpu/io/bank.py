@@ -1,6 +1,6 @@
 """Sequence banks: FASTA/FASTQ readers with gzip and file-of-files support.
 
-The TPU-native analog of gatb's bank layer (bank/impl/BankFasta,
+The analog of gatb's bank layer (bank/impl/BankFasta,
 BankAlbum, Bank factory — reconstructed, SURVEY.md §3.2; user-facing
 format contract: /root/reference/README.md:45-50: "fasta, fastq, either
 gzipped or not", and file-of-filenames via `ls -1 *.fastq > list_reads`).

@@ -1,6 +1,6 @@
 """Host-side 2-bit read packing into fixed-shape device blocks.
 
-TPU-native replacement for the byte-oriented read streaming of gatb
+Replacement for the byte-oriented read streaming of gatb
 bank/impl/BankFasta + the superkmer binning input path
 (kmer/impl/Sequence2SuperKmer, reconstructed — see SURVEY.md §3.2):
 instead of streaming variable-length sequences into per-thread bags, reads

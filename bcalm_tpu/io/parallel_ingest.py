@@ -1,8 +1,8 @@
 """Parallel single-file ingest: decompress thread + parse worker pool.
 
 The common production input is ONE big fastq.gz/fasta.gz — the per-file
-fan-out (utils.dispatcher.parallel_files) gives it a single worker
-(round-4 VERDICT weak #5).  gzip inflation is inherently serial, but
+fan-out (utils.dispatcher.parallel_files) gives it a single worker.
+gzip inflation is inherently serial, but
 parsing + 2-bit packing is not: a reader thread inflates (zlib's C core
 releases the GIL) and cuts the decompressed stream into RECORD-ALIGNED
 chunks; a pool of workers parses each chunk with the native memory

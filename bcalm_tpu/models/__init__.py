@@ -1,6 +1,6 @@
 """K-mer models: lane arithmetic, canonicalization, minimizers.
 
-The TPU-native analog of gatb kmer/impl/Model.hpp (ModelDirect /
+The device-side analog of gatb kmer/impl/Model.hpp (ModelDirect /
 ModelCanonical / ModelMinimizer) and tools/math/LargeInt.
 """
 

@@ -1,9 +1,9 @@
-"""Multi-lane 2-bit k-mer arithmetic (TPU-native replacement for gatb LargeInt).
+"""Multi-lane 2-bit k-mer arithmetic (replacement for gatb LargeInt).
 
 The reference supports arbitrary k via compile-time multi-limb integers
 (gatb tools/math/LargeInt, instantiated per KSIZE_LIST — see
 /root/reference/README.md:93-99 and the runtime span dispatch at
-/root/reference/src/bcalm_1.cpp:95).  On TPU the native integer width is
+/root/reference/src/bcalm_1.cpp:95).  Here the native integer width is
 32 bits, so a k-mer is represented as ``L = ceil(k/16)`` uint32 lanes,
 16 bases per lane, **most-significant lane first**:
 
@@ -14,10 +14,10 @@ in a run has the same k, integer order == lexicographic string order, so
 multi-operand `lax.sort` over the lane tuple sorts k-mers lexicographically.
 
 LAYOUT: device arrays are **lane-major**: shape (L, ...batch...), lane 0
-first.  The batch axis stays the minor (vector-lane) dimension, which is
-what TPU tiling wants — a lane-minor (N, L) layout with L=2..4 would pad
-every row to 128 vector lanes (~64x memory and bandwidth waste; measured
-as a 200x slowdown of the extraction stage before this refactor).
+first.  The batch axis stays the minor (contiguous) dimension, so each
+lane is one contiguous (N,) vector that sorts, gathers and streams at
+memory speed; a lane-minor (N, L) layout with L=2..4 would interleave
+the lanes and make every per-lane pass strided.
 
 Base encoding follows gatb's convention A=0, C=1, T=2, G=3 so that
 complement(b) == b XOR 2 (independently re-derived; the same packing is
@@ -180,7 +180,8 @@ def shift_left_bits(lanes: jnp.ndarray, s: int) -> jnp.ndarray:
 # ---------------------------------------------------------------------------
 
 def _reverse_bases_in_lane(x: jnp.ndarray) -> jnp.ndarray:
-    """Reverse the 16 2-bit base fields inside each uint32 (VPU bit tricks)."""
+    """Reverse the 16 2-bit base fields inside each uint32 (elementwise
+    bit tricks)."""
     x = ((x >> np.uint32(2)) & _M2) | ((x & _M2) << np.uint32(2))
     x = ((x >> np.uint32(4)) & _M4) | ((x & _M4) << np.uint32(4))
     x = ((x >> np.uint32(8)) & _M8) | ((x & _M8) << np.uint32(8))

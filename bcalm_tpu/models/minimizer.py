@@ -7,7 +7,7 @@ frequency-based minimizer order and KMC2-style balanced bin packing
 repartition-type=1 forced at /root/reference/src/bcalm_1.cpp:40-41;
 KMC2/MSP lineage in PAPERS.md).
 
-TPU mapping: partitions are mesh devices (or per-device sub-partitions).
+Device mapping: partitions are mesh devices (or per-device sub-partitions).
 The minimizer of a canonical k-mer is computed on-device with a static
 unrolled scan over its k-m+1 m-mers; the repartition table (4^m entries)
 lives in device memory and routing is a single gather.

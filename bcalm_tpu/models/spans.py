@@ -6,7 +6,7 @@ and dispatches at runtime (`Integer::apply<Functor>(k, ...)`,
 multiples of 32, larger spans run slower).  Here every op is already
 parameterized by the static pair (k, L=ceil(k/16)); jit tracing per (k, L)
 IS the instantiation, so any k up to MAX_K works without a rebuild —
-the TPU analog of recompiling with a bigger KSIZE_LIST is just a new trace.
+the analog of recompiling with a bigger KSIZE_LIST is just a new trace.
 
 This module centralizes validation and exposes the span table for tools
 that want to enumerate supported configurations.

@@ -1,6 +1,6 @@
 """Chain extraction: pointer-jumping unitig assembly over successor arrays.
 
-TPU-native replacement for the reference's glue phase (gatb
+Device-side replacement for the reference's glue phase (gatb
 bcalm2/bglue_algo.cpp: MPHF + concurrent union-find + per-class chain
 walking — reconstructed, SURVEY.md §4.4) and for its sequential bucket
 chain-walking.  The successor array from ops.junctions defines a
@@ -34,10 +34,10 @@ convergence is simply mn[mirror(v)] — the mirror node sits in the
 mirror cycle.
 
 Performance: each round gathers the packed (M, 4) int32 state with ONE
-16-byte-aligned row gather instead of six scalar gathers — TPU gathers
-are index-rate-bound, so packing the state is ~4x cheaper than separate
-gathers, and the single fused loop replaces the previous three (cycle
-detect / min propagate / rank) loops.  Rounds run under lax.while_loop
+16-byte-aligned row gather instead of six scalar gathers — gathers are
+index-rate-bound, so one row gather moves the state for a fraction of
+the index traffic of separate gathers, and the single fused loop
+replaces the previous three (cycle detect / min propagate / rank) loops.  Rounds run under lax.while_loop
 with a convergence test, so the count adapts to the longest chain
 rather than log2(N) when there are no cycles.
 """
@@ -110,8 +110,8 @@ def build_pred(succ: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
     Scatter-free: the successor graph is mirror-symmetric (edge v->w
     exists iff edge mirror(w)->mirror(v) exists), so
     pred(v) = mirror(succ(mirror(v))) — a half-rotation (static
-    slice-concat) plus elementwise mirror of the values.  TPU scatters
-    run at ~25-160M idx/s; this replaces one entirely."""
+    slice-concat) plus elementwise mirror of the values, with no
+    scatter at all."""
     M = succ.shape[0]
     N = M // 2
     succ = jnp.where(valid, succ, -1)
@@ -149,6 +149,7 @@ def finish(succ: jnp.ndarray, pred: jnp.ndarray, valid: jnp.ndarray,
     # break node
     is_end = valid & ((succ < 0) | (in_cycle & (succ == mn)))
     end_of = jnp.full((M,), -1, dtype=jnp.int32)
+    # one end per chain start: in-bounds destinations are unique
     end_of = end_of.at[jnp.where(is_end, start, M)].set(
         jnp.where(is_end, idx, -1), mode="drop"
     )
@@ -215,9 +216,9 @@ def jump_loop(pred: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
 # ---------------------------------------------------------------------------
 # Fast path: rooted-flag pointer jumping + hierarchical sampled contraction.
 #
-# Motivation (measured on v5e): XLA gathers/scatters run at ~150-170M random
-# indices/s regardless of row width, so the doubling loop's cost is purely
-# (rounds x live indices).  Two levers:
+# Motivation: random gathers are index-rate-bound rather than
+# byte-bound, so the doubling loop's cost is (rounds x live indices).
+# Two levers:
 #   1. a ROOTED flag propagated through composition makes rows absorbing
 #      once their span reaches a chain start — removing finish()'s
 #      pred[ptr] gather and letting the while_loop freeze settled rows;
@@ -236,7 +237,8 @@ def jump_loop(pred: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
 # ROOTED (span reaches a chain start: absorbing, final), FIX (this SERVED
 # row is a level-fixpoint identity), SETTLED (query's target served
 # identity — no further level-local progress needed).  Distances are
-# exact in the low 28 bits (any M fits: 2N <= 2^28 k-mers is > HBM).
+# exact in the low 28 bits (any M fits: 2N <= 2^28 k-mers is more than
+# one device's memory holds).
 # ---------------------------------------------------------------------------
 
 _DSF = _DIST            # dist-plus-flags column (alias for readability)
@@ -416,9 +418,8 @@ def hier_jump(pred: jnp.ndarray, valid: jnp.ndarray,
         did = jnp.where(cmask, did, S1)  # drop slot for non-contracted
 
         # build level li+1 by sort-based selection (a 1-column sort of the
-        # selected indices + an S1-sized row gather; a full-size scatter
-        # here ran ~10-40x slower on v5e and was why the hier path lost
-        # to plain doubling in round 2)
+        # selected indices + an S1-sized row gather instead of a full-size
+        # scatter)
         lidx = jnp.arange(S, dtype=jnp.int32)
         sel = jnp.sort(
             jnp.where(cmask, lidx.astype(jnp.uint32), np.uint32(0xFFFFFFFF))
@@ -451,6 +452,7 @@ def hier_jump(pred: jnp.ndarray, valid: jnp.ndarray,
         # convert F ptrs back to this level's local ids (rooted rows carry
         # original root ids already; cycle rows' ptr is unused by finish)
         parent = jnp.full((F.shape[0],), 0, jnp.int32)
+        # in-bounds did values are a cumsum over cmask: unique
         parent = parent.at[did].set(jnp.arange(S, dtype=jnp.int32),
                                     mode="drop")
         Fp = jnp.where(rooted_hi, F[:, _PTR],
@@ -501,9 +503,9 @@ def finish_fast(succ: jnp.ndarray, pred: jnp.ndarray, valid: jnp.ndarray,
     is_start = valid & (~has_pred | break_node)
     is_end = valid & ((succ < 0) | (in_cycle & (succ == mn)))
 
-    # end id + chain length land at the start node.  Measured on v5e:
-    # multi-column scatters serialize ~10x slower than per-column scatters
-    # (85ms vs 2x9ms at M=2^21), so scatter each column separately.
+    # end id + chain length land at the start node.  Every chain has one
+    # start and one end, so in-bounds destinations are unique (the scatter
+    # winner is defined).  Each column is scattered separately.
     w_end = np.int32(1) if wlen is None else wlen
     e_dst = jnp.where(is_end, start, M)
     end_of = jnp.full((M,), -1, jnp.int32).at[e_dst].set(idx, mode="drop")
@@ -525,9 +527,9 @@ def finish_fast(succ: jnp.ndarray, pred: jnp.ndarray, valid: jnp.ndarray,
     val = jnp.take(ks, start, mode="clip")
     uid = jnp.where(valid & (val >= 0), val, -1)
 
-    # compacted per-unitig outputs (per-column scatters: multi-column
-    # scatters serialize ~10x slower on TPU; circular flag packed into
-    # bit 30 of the length word; length <= M < 2^30)
+    # compacted per-unitig outputs (destinations: a cumsum over keep,
+    # unique; circular flag packed into bit 30 of the length word;
+    # length <= M < 2^30)
     pk = length_at_start | jnp.where(break_node, np.int32(1 << 30),
                                      np.int32(0))
     u_dst = jnp.where(keep, uid_at_start, M)
@@ -561,8 +563,8 @@ def chain_decompose(succ: jnp.ndarray, valid: jnp.ndarray,
                 level capacity (astronomically unlikely); the caller must
                 rerun with variant="plain" (engine.compact_solid does).
                 A data-dependent lax.cond fallback here would compile BOTH
-                jump loops into every program (round-2 bench: 47.5s compact
-                warmup), so the rare retry is host-driven instead.
+                jump loops into every program, so the rare retry is
+                host-driven instead.
       start_oid:(2N,) int32 per-unitig start oriented node (compacted)
       length:   (2N,) int32 per-unitig k-mer count (compacted)
       circular: (2N,) bool per-unitig circular flag (compacted)

@@ -1,18 +1,18 @@
-"""K-mer counting: sort + segment-reduce (TPU-native DSK replacement).
+"""K-mer counting: sort + segment-reduce (device-side DSK replacement).
 
 The reference counts k-mers out-of-core (gatb kmer/impl/SortingCountAlgorithm,
 "DSK": disk-staged (pass x partition) radix sort + run-length count,
-reconstructed — SURVEY.md §3.2/§4.2).  On TPU the disk is replaced by HBM
-and the per-partition sort becomes a single dense multi-operand `lax.sort`
-over the uint32 lane tuple followed by vectorized run-length reduction.
+reconstructed — SURVEY.md §3.2/§4.2).  Here the disk is replaced by
+device memory and the per-partition sort becomes a single dense
+multi-operand `lax.sort` over the uint32 lane tuple followed by
+vectorized run-length reduction.
 All shapes are static: "number of unique k-mers" is carried as a scalar
 alongside fixed-capacity arrays, the standard XLA idiom for data-dependent
 sizes.
 
-Layout + performance notes (measured on v5e):
+Layout + performance notes:
 - k-mer sets are LANE-MAJOR (L, N) uint32 (see models.lanes): each lane is
-  a contiguous (N,) vector, which sorts/scatters at memory speed; a
-  lane-minor (N, L) layout tile-pads L up to 128 and ran ~200x slower,
+  a contiguous (N,) vector, which sorts/scatters at memory speed,
 - validity is FOLDED into the key: invalid slots become the all-ones
   sentinel, which is never a canonical k-mer (rc(G^k) = C^k < G^k), so the
   sort carries exactly L key operands,
@@ -60,6 +60,7 @@ def compact(mask: jnp.ndarray, arrays, fill=0):
     Returns (compacted_arrays, count).  Entries past `count` are `fill`.
     """
     N = mask.shape[0]
+    # a cumsum over mask: in-bounds destinations are unique
     dest = jnp.cumsum(mask.astype(jnp.int32)) - 1
     dest = jnp.where(mask, dest, N)  # out-of-range drops in scatter
     outs = []
@@ -100,15 +101,14 @@ def count_canonical(lanes: jnp.ndarray, valid: jnp.ndarray, weights=None,
       n_unique: () int32
       [minpos: (N,) uint32 aligned with `unique` — only if with_pos]
 
-    Implementation note (TPU scatters are index-rate-bound, ~50M idx/s —
-    3 compaction scatters at occurrence scale cost 3x the sort): the
+    Implementation note (counting by sort rather than by scatter): the
     dedup-compaction is a SECOND sort by (group id | sentinel) carrying
     the key lanes and the exclusive weight-cumsum as payloads; group
-    counts are adjacent differences of the compacted cumsums.  Both sorts
-    go through ops.sort_tpu (VMEM-fused bitonic kernels on TPU, lax.sort
-    fallback elsewhere).  Total: 2 sorts + 1 cumsum + elementwise.
+    counts are adjacent differences of the compacted cumsums, so the hot
+    path has no scatter at occurrence scale.  Both sorts go through
+    ops.sort.  Total: 2 sorts + 1 cumsum + elementwise.
     """
-    from bcalm_tpu.ops import sort_tpu
+    from bcalm_tpu.ops import sort
 
     L, N = lanes.shape
     folded = fold_sentinel(lanes, valid)
@@ -119,7 +119,7 @@ def count_canonical(lanes: jnp.ndarray, valid: jnp.ndarray, weights=None,
         nk = L + 1
     if weighted:
         ops.append(weights.astype(jnp.uint32))
-    out = sort_tpu.sort_ops(ops, num_keys=nk)
+    out = sort.sort_ops(ops, num_keys=nk)
     s_lanes = jnp.stack(out[:L], axis=0)
     s_valid = ~jnp.all(s_lanes == SENTINEL, axis=0)
     starts = row_starts(s_lanes, s_valid)
@@ -136,7 +136,7 @@ def count_canonical(lanes: jnp.ndarray, valid: jnp.ndarray, weights=None,
     ops2 = [key2] + [s_lanes[j] for j in range(L)] + [excl]
     if with_pos:
         ops2.append(out[L])  # group-head pos = group min (pos is a key)
-    out2 = sort_tpu.sort_ops(ops2, num_keys=1)
+    out2 = sort.sort_ops(ops2, num_keys=1)
     n_unique = jnp.sum(starts.astype(jnp.int32))
     idx = jnp.arange(N, dtype=jnp.int32)
     valid_g = idx < n_unique
@@ -176,8 +176,8 @@ def filter_abundance_fold(unique, counts, minpos, n_unique, abundance_min,
     sentinel (lanes + pos) instead of scatter-compacted.  The downstream
     locality reorder (ops.runchains.reorder_by_pos) sorts by pos anyway,
     which pushes folded columns past the valid prefix for free — so the
-    scatter compaction (~50M idx/s on TPU) and one host round-trip are
-    both avoided.  Returns (unique', counts', pos', nn) with nn a stacked
+    scatter compaction and one host round-trip are both avoided.
+    Returns (unique', counts', pos', nn) with nn a stacked
     (2,) int32 of [n_unique, n_solid]: ONE fetch serves both scalars."""
     N = unique.shape[1]
     idx = jnp.arange(N, dtype=jnp.int32)

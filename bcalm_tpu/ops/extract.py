@@ -1,6 +1,6 @@
 """Device kernel: canonical k-mer extraction from packed read blocks.
 
-TPU-native replacement for the reference's HOT LOOP 1 (per-base rolling
+Device-side replacement for the reference's HOT LOOP 1 (per-base rolling
 k-mer + canonicalization inside gatb kmer/impl/Sequence2SuperKmer /
 Model.hpp, reconstructed — SURVEY.md §4.2).  Instead of a sequential
 rolling hash per read, every k-mer of every read in a block is produced
@@ -9,7 +9,7 @@ simultaneously with O(log 16) vector ops:
 1. decode 2-bit packed words to a (B, P) base plane,
 2. build a forward "window pack" M(p)  = bases[p..p+15] (big-endian) and a
    reverse-complement pack     rcM(p) = sum_i comp(bases[p+i]) * 4^i
-   via shift-and-or doubling (4 steps each, pure VPU),
+   via shift-and-or doubling (4 steps each, elementwise only),
 3. slice the window packs at static lane offsets to materialize all L
    lanes of both the forward k-mer and its reverse complement at every
    position, then select the canonical orientation lane-lexicographically.

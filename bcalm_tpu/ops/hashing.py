@@ -1,6 +1,6 @@
 """Vectorized 32-bit mixing hashes over k-mer lanes.
 
-Used for partition routing (the TPU-mesh analog of the reference's
+Used for partition routing (the device-mesh analog of the reference's
 minimizer->partition repartition table, gatb kmer/impl/Repartitor —
 SURVEY.md §3.2) and for load-balanced all_to_all exchanges.  Murmur3-style
 finalizer; uint32 arithmetic wraps, which is exactly what we want.

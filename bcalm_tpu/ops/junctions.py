@@ -1,6 +1,6 @@
 """Junction classification: vectorized (k-1)-overlap matching.
 
-TPU-native replacement for the reference's bucket compaction + glue
+Device-side replacement for the reference's bucket compaction + glue
 machinery (gatb bcalm2/ograph.cpp hash-chaining, bcalm2/bglue_algo.cpp +
 unionFind.hpp — reconstructed, SURVEY.md §3.2/§4.3-4.4).  Instead of
 pointer-chasing hash tables and a concurrent union-find, the bi-directed
@@ -82,9 +82,9 @@ def use_hash_keys(k: int) -> bool:
     """Engage the 96-bit hashed junction keys when they reduce the sort
     operand count (k-1 > 48 bases).  The hash sort is 4 operands for ANY
     k (3 hash words + payload) vs L2+1(+1) for exact keys — at k=51 that
-    is a 20% sort-memory cut and at k=127 a 55% cut, which lifts the
-    single-chip junction-stage ceiling past 100M solid k-mers on 16 GB
-    (docs/OOC.md 'Single-chip compaction ceiling').
+    is a 20% sort-memory cut and at k=127 a 55% cut, which raises the
+    single-device junction-stage ceiling (docs/OOC.md 'Single-chip
+    compaction ceiling').
 
     Exactness: two distinct (key, strand) sides colliding in all 96 bits
     happens with probability ~n^2/2^97 (~5e-13 at n=2^28 entries) — far
@@ -111,17 +111,24 @@ def _mix32(h: jnp.ndarray) -> jnp.ndarray:
 
 def _hash96(keys: jnp.ndarray):
     """(L2, N) key lanes -> three independent u32 hash words
-    (multiplicative chains with distinct odd constants, finalized per
-    word)."""
+    (multiplicative chains with distinct odd constants, every lane step
+    finalized by _mix32).
+
+    The per-step mix is load-bearing: in a bare (h ^ lane) * C + j chain
+    a flip of bit 31 only flips bit 31 of the product, so keys whose
+    lanes j and j+1 BOTH differ in bit 31 (the top base of each lane
+    complemented, A<->T or C<->G) collide in all three words at once —
+    a structural collision that real reads with substitution errors
+    produce, and that merges two junction groups into one."""
     h0 = jnp.full(keys.shape[1], np.uint32(0x9E3779B1), _U32)
     h1 = jnp.full(keys.shape[1], np.uint32(0x61C88647), _U32)
     h2 = jnp.full(keys.shape[1], np.uint32(0x2545F491), _U32)
     for j in range(keys.shape[0]):
         lane = keys[j]
-        h0 = (h0 ^ lane) * _H1 + np.uint32(j + 1)
-        h1 = (h1 ^ lane) * _H2 + np.uint32(2 * j + 1)
-        h2 = (h2 ^ lane) * _H3 + np.uint32(3 * j + 1)
-    return _mix32(h0), _mix32(h1), _mix32(h2)
+        h0 = _mix32((h0 ^ lane) * _H1 + np.uint32(j + 1))
+        h1 = _mix32((h1 ^ lane) * _H2 + np.uint32(2 * j + 1))
+        h2 = _mix32((h2 ^ lane) * _H3 + np.uint32(3 * j + 1))
+    return h0, h1, h2
 
 
 def _make_keys(keys: jnp.ndarray, strand: jnp.ndarray, valid, k: int):
@@ -179,7 +186,7 @@ def successor_arrays(solid: jnp.ndarray, n_solid: jnp.ndarray, k: int):
         oid_p | (role_p << _ROLE_SHIFT),
     ])
 
-    from bcalm_tpu.ops import sort_tpu
+    from bcalm_tpu.ops import sort
 
     if use_hash_keys(k):
         # 96-bit hashed keys: 4 sort operands for any k (see use_hash_keys)
@@ -190,7 +197,7 @@ def successor_arrays(solid: jnp.ndarray, n_solid: jnp.ndarray, k: int):
         kw = [jnp.concatenate([jnp.where(vs, hs[i], SENTINEL),
                                jnp.where(vp, hp[i], SENTINEL)])
               for i in range(3)]
-        out = sort_tpu.sort_ops(kw + [payload], num_keys=3)
+        out = sort.sort_ops(kw + [payload], num_keys=3)
         s_keys = jnp.stack(out[:3], axis=0)
         s_pay = out[3]
         s_valid = ~jnp.all(s_keys == SENTINEL, axis=0)
@@ -199,7 +206,7 @@ def successor_arrays(solid: jnp.ndarray, n_solid: jnp.ndarray, k: int):
             jnp.where((valid1 & ~suf_pal)[None], suf_c, SENTINEL),
             jnp.where((valid1 & ~pre_pal)[None], pre_c, SENTINEL),
         ], axis=1)
-        out = sort_tpu.sort_ops(
+        out = sort.sort_ops(
             [keys[j] for j in range(L2)] + [payload], num_keys=L2)
         s_keys = jnp.stack(out[:L2], axis=0)
         s_pay = out[L2]
@@ -236,6 +243,9 @@ def successor_arrays(solid: jnp.ndarray, n_solid: jnp.ndarray, k: int):
     widx = jnp.where(ok, src, jnp.where(ok_t, mirror(dst_t), 2 * N))
     wval = jnp.where(ok, dst, mirror(src_t))
 
+    # in-bounds widx are unique: each oriented node's out-end is ONE
+    # physical side, emitted once (as OUT(v) or as IN(mirror(v))), and a
+    # pair's two writes differ because vert_a != vert_b
     succ = jnp.full((2 * N,), -1, dtype=jnp.int32)
     succ = succ.at[widx].set(wval, mode="drop")
     return succ, None

@@ -1,6 +1,6 @@
 """Superkmer formation + packing: minimizer-run routing units.
 
-TPU-native replacement for the reference's Sequence2SuperKmer /
+Device-side replacement for the reference's Sequence2SuperKmer /
 SuperKmerBinFiles stage (gatb kmer/impl/SortingCountAlgorithm,
 reconstructed — SURVEY.md §3.2): consecutive k-mers of a read that share a
 minimizer form a *superkmer*, and the whole base run is routed to the
@@ -18,7 +18,7 @@ read — mean superkmer span stays ~(k-m+2)/2 (computing minimizers on the
 canonical k-mer's own sequence instead breaks runs at every strand flip
 and measured ~2x shorter spans).
 
-Everything is computed at all read positions simultaneously on the VPU:
+Everything is computed at all read positions simultaneously:
 per-position canonical m-mers (single-lane bit tricks), a log-doubling
 sliding-window min over the m-mer keys, run breaks where the window key
 changes (plus span cuts at `max_span` for a fixed packed width), and the

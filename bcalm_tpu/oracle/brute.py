@@ -14,7 +14,7 @@ reference EXACTLY as specified in
 
 This stands in for the reference binary (which is not runnable here — the
 gatb-core submodule is absent, SURVEY.md §0) as the ground truth that the
-TPU engine must match on every fixture, up to orientation/ID permutation.
+device engine must match on every fixture, up to orientation/ID permutation.
 
 O(n*k) per dataset: test-scale only.
 """

@@ -14,7 +14,8 @@ parallel.pipeline (sharded counting):
    successor array,
 5. chain extraction = distributed pointer jumping: each doubling round
    resolves remote jump targets with a request/response all_to_all pair
-   (log(longest chain) rounds over ICI — the collective analog of the
+   (log(longest chain) rounds over the interconnect — the collective
+   analog of the
    reference's log-free but lock-contended union-find).
 
 All exchanges are fixed-capacity with psum'd overflow detection (never
@@ -140,6 +141,8 @@ def _local_succ_shard(solid, n_local, k: int, n_dev: int, cap_entries: int,
         eb = edges[1].astype(jnp.int32)
         eslot = jnp.where(ea >= tot, ea - tot, ea) - me * slot_cap
         lidx = jnp.where(ea >= tot, eslot + slot_cap, eslot)
+        # in- and out-degree <= 1: each a appears in at most one edge, so
+        # in-bounds destinations are unique
         table = jnp.full((2 * slot_cap,), -1, dtype=jnp.int32)
         table = table.at[jnp.where(ev, lidx, 2 * slot_cap)].set(
             jnp.where(ev, eb, -1), mode="drop"
@@ -193,7 +196,7 @@ def _glue_shard(succ_l, n_loc, *, n_dev: int, slot_cap: int, run_cap: int,
     via request/response rid lookups, sharded weighted pointer jumping
     over the contracted run graph, and finish — everything device-side.
 
-    The TPU-native replacement for bglue's shared-memory union-find
+    The device-side replacement for bglue's shared-memory union-find
     (gatb bcalm2/bglue_algo.cpp, example/uf/testUF.cpp:22-63): per-device
     memory is O(slot_cap + run_cap + n_dev*qcap) = O(N/n_dev) with
     bounded exchange capacities (overflow counted, host retries bigger).
@@ -281,7 +284,7 @@ def _glue_shard(succ_l, n_loc, *, n_dev: int, slot_cap: int, run_cap: int,
     # ---- sharded weighted flagged doubling over the contracted graph:
     # each round routes ancestor-row REQUESTS to their owners and routes
     # the 4-int rows back (per-device traffic O(run_cap), never a gather
-    # of the whole table — the round-2/3 scalability complaint) ----
+    # of the whole table) ----
     two_rc = 2 * run_cap
     gidx2 = jnp.concatenate([
         me * run_cap + jnp.arange(run_cap, dtype=jnp.int32),
@@ -350,6 +353,7 @@ def _glue_shard(succ_l, n_loc, *, n_dev: int, slot_cap: int, run_cap: int,
     ent = erl.reshape(3, -1)
     ev = erv.reshape(-1)
     erow = jnp.clip(gq_local(ent[0].astype(jnp.int32)), 0, two_rc - 1)
+    # one end per chain start: in-bounds destinations are unique
     edst = jnp.where(ev, erow, two_rc)
     end_of = jnp.full((two_rc,), -1, jnp.int32).at[edst].set(
         jnp.where(ev, ent[1].astype(jnp.int32), -1), mode="drop")
@@ -408,8 +412,7 @@ def reshard_pos_fn(mesh, L: int, k: int, slot_cap: int, route_cap: int,
     """Device-side global sort-by-position + re-shard (the host funnel
     replacement: distributed_compact_pos previously concatenated every
     device's solid run in host RAM, argsorted, and re-uploaded — O(N)
-    per-host memory and 2x the table over the link; round-4 VERDICT
-    weak #4).
+    per-host memory and 2x the table over the link).
 
     Per device: local sort by first-occurrence key, sampled global
     quantile pivots (all_gather of Q local quantiles), bucket exchange
@@ -417,13 +420,13 @@ def reshard_pos_fn(mesh, L: int, k: int, slot_cap: int, route_cap: int,
     orientation flip.  Output shards are position-contiguous in pivot
     order — exactly the gid = d*slot_cap + i layout the sharded glue
     expects.  Overflow (route or slot) is psum-counted, never silent."""
-    from bcalm_tpu.ops import sort_tpu
+    from bcalm_tpu.ops import sort
 
     def local(stk, n_loc):
         lanes = stk[:L]
         counts = stk[L]
         pos = stk[L + 1]
-        out = sort_tpu.sort_ops(
+        out = sort.sort_ops(
             [pos] + [lanes[j] for j in range(L)] + [counts], num_keys=1)
         pos_s = out[0]
         valid = pos_s != count_op_SENTINEL
@@ -451,7 +454,7 @@ def reshard_pos_fn(mesh, L: int, k: int, slot_cap: int, route_cap: int,
                                     concat_axis=0).reshape(-1)
         ent = recv.reshape(L + 2, -1)
         ent = jnp.where(rvalid[None], ent, count_op_SENTINEL)
-        out2 = sort_tpu.sort_ops(
+        out2 = sort.sort_ops(
             [ent[L + 1]] + [ent[j] for j in range(L)] + [ent[L]],
             num_keys=1)
         n_recv = jnp.sum(rvalid.astype(jnp.int32))

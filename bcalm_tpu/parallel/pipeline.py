@@ -1,9 +1,10 @@
 """Sharded multi-chip pipeline: distributed k-mer counting over a Mesh.
 
-TPU-native replacement for the reference's (pass x partition) disk staging
+Device-side replacement for the reference's (pass x partition) disk staging
 (gatb SortingCountAlgorithm — SURVEY.md §3.3/§4.2): the minimizer
 partition space maps onto mesh devices, and superkmer routing to disk
-partitions becomes an `all_to_all` over ICI.  The production path
+partitions becomes an `all_to_all` over the interconnect.  The
+production path
 (`distributed_build`) is STREAMED and MINIMIZER-PARTITIONED:
 
 1. a sampling round builds the m-mer frequency order + the
@@ -87,6 +88,7 @@ def _route_to_buckets(stacked, valid, owner, n_dev: int, cap: int,
     )
     within = idx - run_start
     ok = s_valid & (within < cap) & (s_owner < n_dev)
+    # (owner, within) pairs are distinct: in-bounds destinations are unique
     dest = jnp.where(ok, s_owner * cap + within, n_dev * cap)
     bl = jnp.zeros((C, n_dev * cap), dtype=stacked.dtype)
     for c in range(C):
@@ -215,8 +217,8 @@ def pack_global_blocks(seqs: Iterable[str], k: int, n_dev: int,
 def iter_global_blocks(seqs: Iterable[str], k: int, n_dev: int,
                        block_reads: int, max_len: int):
     """Stream (words, lengths) rounds with exactly n_dev * block_reads rows
-    each — host memory O(round), never the whole input (VERDICT round-1
-    item 5: the old pack_global_blocks materialized everything)."""
+    each — host memory O(round), never the whole input (pack_global_blocks
+    materializes everything)."""
     from bcalm_tpu.io import packing
 
     acc_w, acc_l = [], []
@@ -270,8 +272,8 @@ def sample_tables_multi(sample_rounds, k: int, mcfg: MinimizerConfig,
     """Build the canonical-m-mer frequency order + the balanced
     minimizer->partition table from SEVERAL rounds of reads (gatb
     RepartitionAlgorithm runs a dedicated sampling pass over the input —
-    SURVEY.md §3.2; round-2 VERDICT item 8: one-round sampling skews the
-    whole run on locally-biased prefixes like position-sorted reads).
+    SURVEY.md §3.2; one-round sampling skews the whole run on
+    locally-biased prefixes like position-sorted reads).
 
     Two passes over the buffered sample: (1) accumulate the canonical
     m-mer histogram and derive the frequency rank, (2) accumulate the
@@ -392,8 +394,8 @@ def stack_trim_fn(mesh: Mesh, L: int, cap_out: int, ranged: bool = False):
     """Sharded per-device trim of a counting round's output into ONE
     stacked (L+2, n_dev*cap_out) run (lanes + counts-as-u32 + pos), tails
     sentinel-folded.  Device-resident replacement for the per-round host
-    fetch (round-4 VERDICT weak #4: the mesh path funneled every round's
-    distinct runs through host RAM).
+    fetch (which funneled every round's distinct runs through host
+    RAM).
 
     ranged=True additionally folds entries whose key lies outside the
     global [lo, hi) lex range — the mesh analog of the single-chip
@@ -498,7 +500,7 @@ def superkmer_capacity(block_reads: int, max_len: int, k: int, m: int,
     max_share: observed worst per-device k-mer load share from the
     sampling rounds (None = assume uniform 1/n_dev).  Sizing the capacity
     to the measured skew makes overflow retries rare instead of merely
-    recoverable (round-3 VERDICT weak #6)."""
+    recoverable."""
     from bcalm_tpu.ops import superkmer as skm
 
     occ = max(1, max_len - k + 1)
@@ -511,9 +513,8 @@ def superkmer_capacity(block_reads: int, max_len: int, k: int, m: int,
 class _CapacityLadder:
     """Background AOT compiles of the next exchange-capacity rung.
 
-    An overflow retry used to rebuild + compile the shard_map jit
-    mid-run — minutes on the remote-compile backend, paid at the worst
-    moment (round-3 VERDICT weak #6).  The ladder compiles cap*2 in a
+    An overflow retry would otherwise rebuild + compile the shard_map jit
+    mid-run, paid at the worst moment.  The ladder compiles cap*2 in a
     daemon thread as soon as the round shapes are known, so the retry
     path swaps in an already-compiled executable."""
 
@@ -593,7 +594,7 @@ def distributed_build(seqs, cfg, mesh: Mesh,
     rounds = iter_global_blocks(seqs, k, n_dev, block_reads, cfg.max_len)
     # buffer the first rounds as the repartition SAMPLE (a dedicated-pass
     # analog of gatb RepartitionAlgorithm; one-round sampling mis-balances
-    # position-sorted inputs — round-2 VERDICT item 8); the buffered
+    # position-sorted inputs); the buffered
     # rounds are then counted first, so nothing is read twice
     sample = list(itertools.islice(rounds, SAMPLE_ROUNDS))
     if not sample:
@@ -601,9 +602,16 @@ def distributed_build(seqs, cfg, mesh: Mesh,
             k=k, seqs=[], kc=np.zeros(0, np.int64), abundances=[],
             circular=np.zeros(0, bool), links=[], stats={"solid_kmers": 0})
     freq_rank, table, load = sample_tables_multi(sample, k, mcfg, n_dev)
-    table_d = jnp.asarray(table)
-    rank_d = (jnp.asarray(freq_rank) if freq_rank is not None
-              else jnp.zeros((4 ** m,), jnp.uint32))
+    # inputs go straight to their mesh placement (read rows split over
+    # the devices, tables replicated): nothing lands whole on one device
+    # first and is resharded by every call
+    rows_sh = jax.sharding.NamedSharding(mesh, P(AXIS, None))
+    vec_sh = jax.sharding.NamedSharding(mesh, P(AXIS))
+    repl_sh = jax.sharding.NamedSharding(mesh, P())
+    table_d = jax.device_put(table, repl_sh)
+    rank_d = jax.device_put(
+        freq_rank if freq_rank is not None
+        else np.zeros((4 ** m,), np.uint32), repl_sh)
 
     # skew-aware capacity: size to the sampled worst per-device load share
     # so overflow retries are rare, not just recoverable
@@ -628,8 +636,7 @@ def distributed_build(seqs, cfg, mesh: Mesh,
 
     # device-resident per-device distinct runs: [stacked (L+2, n_dev*c),
     # n (n_dev,) host, gen] with LSM generation merging — the counting
-    # output never round-trips through host RAM (round-4 VERDICT weak
-    # #4: the old path fetched every round's runs and merged on host)
+    # output never round-trips through host RAM
     L = ln.num_lanes(k)
     dev_partials: list = []
     _stack_cache: dict = {}
@@ -683,11 +690,13 @@ def distributed_build(seqs, cfg, mesh: Mesh,
         round_base = 0
         resident = np.zeros((n_dev,), np.int64)
         for words, lengths in round_iter:
-            w_d, l_d = jnp.asarray(words), jnp.asarray(lengths)
-            rb = jnp.asarray(np.uint32(round_base & 0x3FFFFFFF))
+            w_d = jax.device_put(words, rows_sh)
+            l_d = jax.device_put(lengths, vec_sh)
+            rb = jax.device_put(np.uint32(round_base & 0x3FFFFFFF), repl_sh)
             if arg_shapes is None:
                 arg_shapes = tuple(
-                    jax.ShapeDtypeStruct(x.shape, x.dtype)
+                    jax.ShapeDtypeStruct(x.shape, x.dtype,
+                                         sharding=x.sharding)
                     for x in (w_d, l_d, table_d, rank_d, rb))
                 # next rung compiles in the background from round 1, so
                 # an overflow retry never waits on the compile service

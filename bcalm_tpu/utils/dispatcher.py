@@ -2,10 +2,10 @@
 
 The reference fans sequences out to worker threads with
 `Dispatcher::iterate(bank, functor, nbCores)` (SURVEY.md §3.2) backed by
-the vendored ThreadPool/ConcurrentQueue.  On the TPU pipeline the only
+the vendored ThreadPool/ConcurrentQueue.  On the device pipeline the only
 host-side parallel work is ingest (parse + pack), so the analog is a small
 producer pool that keeps packed ReadBlocks ready ahead of device compute,
-overlapping host I/O with TPU execution.
+overlapping host I/O with device execution.
 """
 
 from __future__ import annotations

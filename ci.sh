@@ -17,7 +17,7 @@ echo "== native build =="
 make -C native
 
 echo "== pytest (cpu, 8 virtual devices) =="
-python -m pytest tests/ -q "$@"
+JAX_PLATFORMS=cpu python -m pytest tests/ -q "$@"
 
 echo "== CLI smoke =="
 tmp=$(mktemp -d)
@@ -31,9 +31,9 @@ with open(sys.argv[1] + "/reads.fa", "w") as f:
         for c in range(3):
             f.write(f">r{i}_{c}\n{g[i:i+40]}\n")
 EOF
-(cd "$tmp" && BCALM_TPU_PLATFORM=cpu PYTHONPATH="$OLDPWD" \
+(cd "$tmp" && JAX_PLATFORMS=cpu PYTHONPATH="$OLDPWD" \
     python -m bcalm_tpu -in reads.fa -kmer-size 21 -abundance-min 2)
-(cd "$tmp" && BCALM_TPU_PLATFORM=cpu PYTHONPATH="$OLDPWD" \
+(cd "$tmp" && JAX_PLATFORMS=cpu PYTHONPATH="$OLDPWD" \
     python "$OLDPWD/scripts/unitig_evaluator.py" reads.unitigs.fa reads.fa 21 \
     | grep -q "FP 0  FN 0")
 echo "CI OK"

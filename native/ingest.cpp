@@ -1,6 +1,6 @@
 // Native ingest: FASTA/FASTQ(.gz) streaming parser + 2-bit block packer.
 //
-// TPU-native replacement for the reference's native bank layer (gatb
+// Replacement for the reference's native bank layer (gatb
 // bank/impl/BankFasta with zlib — reconstructed, SURVEY.md §3.2): the
 // byte-bashing hot path (parse + validate + 2-bit pack) stays native, but
 // instead of yielding Sequence objects it fills fixed-shape uint32 blocks
@@ -159,9 +159,9 @@ class Reader {
       buf_.clear();
   }
 
-  // ---- bulk input buffering (a per-byte gzgetc loop measured ~126 MB/s
-  // uncompressed-equivalent; bulk gzread + pointer scanning removes the
-  // per-byte call overhead — the gatb BankFasta buffered-parse analog) ----
+  // ---- bulk input buffering (bulk gzread + pointer scanning instead of
+  // a per-byte gzgetc loop removes the per-byte call overhead — the gatb
+  // BankFasta buffered-parse analog) ----
   bool refill() {
     if (in_eof_) return false;
     if (mem_mode_) {  // the whole buffer was served up front

@@ -33,12 +33,10 @@ os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + " --xla_force_host_platform_device_count=4"
 ).strip()
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
 
 
 def main():

@@ -437,50 +437,128 @@ def test_devices_refuses_min_max_solidity(tmp_path):
     assert rc == 1
 
 
-def test_compaction_oom_respawns_skip_bcalm(tmp_path, monkeypatch, capsys):
-    """A CompactionOOM from the build (allocator death after the counting
-    checkpoint) re-execs the identical command with -skip-bcalm in a
-    fresh process and returns the child's exit code; a respawned child
-    (BTPU_NO_RESPAWN=1) or an explicit -skip-bcalm run never loops."""
-    import subprocess
+class _Execed(Exception):
+    """Stands in for os.execve, which never returns."""
 
+
+def _oom_build(monkeypatch, tmp_path):
+    """A build whose compaction dies with CompactionOOM, and a recorder
+    in place of os.execve.  Returns (args, calls)."""
     fa = tmp_path / "r.fa"
     write_fasta_file(fa, [TINY] * 3)
 
     def boom(*a, **kw):
-        raise engine.CompactionOOM(
-            "device allocator exhausted during compaction; the counted "
-            "solid set is checkpointed — resume with -skip-bcalm in a "
-            "fresh process")
+        try:
+            raise RuntimeError("RESOURCE_EXHAUSTED: Out of memory while "
+                               "trying to allocate 17179869184 bytes.")
+        except RuntimeError as e:
+            raise engine.CompactionOOM(
+                "device allocator exhausted during compaction; the "
+                "counted solid set is checkpointed — resume with "
+                "-skip-bcalm in a fresh process") from e
 
     monkeypatch.setattr(engine, "build_from_blocks", boom)
+    monkeypatch.delenv("BTPU_NO_RESPAWN", raising=False)
     calls = []
 
-    def fake_call(cmd, env=None):
-        calls.append((cmd, env))
-        return 0
+    def fake_execve(path, argv, env):
+        calls.append((path, argv, env))
+        raise _Execed()
 
-    monkeypatch.setattr(subprocess, "call", fake_call)
+    monkeypatch.setattr(os, "execve", fake_execve)
     args = ["-in", str(fa), "-kmer-size", "13", "-abundance-min", "1",
             "-verbose", "0"]
-    rc = cli.main(args)
-    assert rc == 0
-    assert len(calls) == 1
-    cmd, env = calls[0]
-    assert cmd[-1] == "-skip-bcalm" and "-in" in cmd
-    assert env["BTPU_NO_RESPAWN"] == "1"
+    return args, calls
 
-    # respawned child must not respawn again: the OOM propagates
+
+def test_compaction_oom_respawns_skip_bcalm(tmp_path, monkeypatch, capsys):
+    """A CompactionOOM from the build (allocator death after the counting
+    checkpoint) REPLACES the process (exec, so the device reservation goes
+    with it) by the identical command plus -skip-bcalm, after printing
+    the original traceback; a respawned process (BTPU_NO_RESPAWN=1) or an
+    explicit -skip-bcalm run never loops."""
+    args, calls = _oom_build(monkeypatch, tmp_path)
+    with pytest.raises(_Execed):
+        cli.main(args)
+    assert len(calls) == 1
+    path, argv, env = calls[0]
+    assert path == argv[0]
+    assert argv[1:3] == ["-m", "bcalm_tpu"]
+    assert argv[3:-1] == args and argv[-1] == "-skip-bcalm"
+    assert env["BTPU_NO_RESPAWN"] == "1"
+    # the package stays importable from any working directory
+    root = os.path.dirname(os.path.dirname(os.path.abspath(cli.__file__)))
+    assert env["PYTHONPATH"].split(os.pathsep)[0] == root
+    err = capsys.readouterr().err
+    assert "Traceback" in err and "RESOURCE_EXHAUSTED" in err
+
+    # respawned process must not respawn again: the OOM propagates
     monkeypatch.setenv("BTPU_NO_RESPAWN", "1")
     calls.clear()
     with pytest.raises(engine.CompactionOOM):
         cli.main(args)
     assert not calls
 
+    # nor does a run the user already started with -skip-bcalm
+    monkeypatch.delenv("BTPU_NO_RESPAWN")
+    assert cli._respawn_skip_bcalm(args + ["-skip-bcalm"],
+                                   RuntimeError("x")) is None
+    assert not calls
+
+
+def test_compaction_oom_no_exec_under_server(tmp_path, monkeypatch, capsys):
+    """The -server process must keep serving: a compaction OOM answers
+    rc 1 with the resume hint and never replaces the process."""
+    args, calls = _oom_build(monkeypatch, tmp_path)
+    assert cli.main(args, allow_exec=False) == 1
+    assert not calls
+    assert "-skip-bcalm" in capsys.readouterr().err
+
+
+def test_server_never_execs(tmp_path, monkeypatch):
+    """End to end through the socket: the server answers the OOM'd
+    request with rc 1 and keeps serving the next one."""
+    import json
+    import socket as socket_mod
+    import threading
+
+    args, calls = _oom_build(monkeypatch, tmp_path)
+    sock = str(tmp_path / "s.sock")
+    t = threading.Thread(target=cli.serve, args=(sock,), daemon=True)
+    t.start()
+    for _ in range(200):
+        if os.path.exists(sock):
+            break
+        t.join(0.05)
+
+    def request(payload):
+        c = socket_mod.socket(socket_mod.AF_UNIX, socket_mod.SOCK_STREAM)
+        c.settimeout(60)
+        c.connect(sock)
+        c.sendall(json.dumps(payload).encode() + b"\n")
+        data = b""
+        while not data.endswith(b"\n"):
+            chunk = c.recv(1 << 16)
+            if not chunk:
+                break
+            data += chunk
+        c.close()
+        return json.loads(data)
+
+    assert request({"argv": args})["rc"] == 1
+    assert request({"argv": ["-version"]})["rc"] == 0
+    assert request({"op": "shutdown"})["rc"] == 0
+    t.join(10)
+    assert not t.is_alive()
+    assert not calls
+
 
 def test_is_resource_exhausted_classifier():
-    assert engine._is_resource_exhausted(
-        RuntimeError("RESOURCE_EXHAUSTED: TPU backend error"))
-    assert engine._is_resource_exhausted(
-        RuntimeError("TPU backend error (ResourceExhausted)"))
+    # the GPU allocator's status texts (XLA's BFC allocator)
+    assert engine._is_resource_exhausted(RuntimeError(
+        "RESOURCE_EXHAUSTED: Out of memory while trying to allocate "
+        "17179869184 bytes."))
+    assert engine._is_resource_exhausted(RuntimeError(
+        "ResourceExhausted: failed to allocate request for 16.00GiB on "
+        "device ordinal 0"))
     assert not engine._is_resource_exhausted(ValueError("shape mismatch"))

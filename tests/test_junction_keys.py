@@ -61,3 +61,23 @@ def test_hash96_no_collisions_on_distinct_keys():
     pairs = np.stack([h, np.asarray(h2).astype(np.uint64)], axis=1)
     uniq = np.unique(pairs, axis=0)
     assert uniq.shape[0] == 200_000
+
+
+def test_hash96_no_collisions_on_structured_keys():
+    """Keys that differ only in bit 31 of two or more lanes (the top base
+    of each lane complemented, as substitution errors produce) must not
+    collide: a bare xor-multiply chain maps all such pairs together."""
+    rng = np.random.RandomState(1)
+    base = rng.randint(0, 2**31, size=(4, 2000)).astype(np.uint32)
+    top = np.uint32(1 << 31)
+    variants = [base]
+    for mask in range(1, 16):
+        v = base.copy()
+        for j in range(4):
+            if mask >> j & 1:
+                v[j] ^= top
+        variants.append(v)
+    lanes = np.concatenate(variants, axis=1)
+    h = np.stack([np.asarray(x) for x in junc._hash96(jnp.asarray(lanes))],
+                 axis=1)
+    assert np.unique(h, axis=0).shape[0] == lanes.shape[1]

@@ -1,6 +1,6 @@
 """Validate the brute-force oracle on the reference's own fixtures + invariants.
 
-The oracle is the ground truth for the TPU engine, so it gets its own tests:
+The oracle is the ground truth for the device engine, so it gets its own tests:
 spec examples from bidirected-graphs-in-bcalm2.md, the repo fixtures
 (tiny_read, minitip, circular tests, pufferize refs), and decomposition
 invariants on random data (the reference's unitigEvaluator.cpp:214 invariant).

@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from bcalm_tpu.ops import sort_tpu
+from bcalm_tpu.ops import sort
 
 
 def test_sort_ops_multikey_with_payload():
@@ -13,7 +13,7 @@ def test_sort_ops_multikey_with_payload():
     k0 = rng.randint(0, 8, size=n).astype(np.uint32)
     k1 = rng.randint(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
     pay = np.arange(n, dtype=np.uint32)
-    out = sort_tpu.sort_ops(
+    out = sort.sort_ops(
         [jnp.asarray(k0), jnp.asarray(k1), jnp.asarray(pay)], num_keys=2)
     o0, o1, op = (np.asarray(x) for x in out)
     order = np.lexsort((k1, k0))
@@ -28,5 +28,5 @@ def test_sort_ops_multikey_with_payload():
 def test_sort_ops_single_key():
     rng = np.random.RandomState(1)
     x = rng.randint(0, 2**32, size=1000, dtype=np.uint64).astype(np.uint32)
-    out = sort_tpu.sort_ops([jnp.asarray(x)], num_keys=1)
+    out = sort.sort_ops([jnp.asarray(x)], num_keys=1)
     assert (np.asarray(out[0]) == np.sort(x)).all()
